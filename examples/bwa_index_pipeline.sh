@@ -1,13 +1,13 @@
 #!/bin/bash
 # The product-level BWA index pipeline (reference README "Generating an
-# index for BWA", SURVEY.md section 3.5) using bwtb3m_tpu end to end.
+# index for BWA", SURVEY.md section 3.5) using bwtb3m end to end.
 #
 # Usage: examples/bwa_index_pipeline.sh ref.fa [workdir]
 set -euo pipefail
 FA=${1:?usage: bwa_index_pipeline.sh ref.fa [workdir]}
 WORK=${2:-$(mktemp -d)}
 mkdir -p "$WORK"
-BIN="python -m bwtb3m_tpu"
+BIN="python -m bwtb3m"
 
 # 1. FASTA -> 2-bit pac (BWA's own fa2pac if available; otherwise pack
 #    with fagzToCompact4 and convert — here we use bwa when present)
@@ -15,12 +15,12 @@ if command -v bwa >/dev/null; then
     (cd "$WORK" && bwa fa2pac "$FA" ref)
     PAC="$WORK/ref.pac"
 else
-    # pure bwtb3m_tpu path: pack ACGT (N -> seeded random, recorded in meta)
+    # pure bwtb3m path: pack ACGT (N -> seeded random, recorded in meta)
     $BIN fagzToCompact4 "outputfilename=$WORK/ref.c4" "$FA"
     python - "$WORK" <<'PY'
 import sys
-from bwtb3m_tpu.io import compact
-from bwtb3m_tpu.io.pac import write_pac
+from bwtb3m.io import compact
+from bwtb3m.io.pac import write_pac
 work = sys.argv[1]
 sym, _bits = compact.read_compact(work + "/ref.c4")
 write_pac(work + "/ref.pac", sym)

@@ -11,9 +11,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from bwtb3m_tpu.engine import (BwtOptions, check_bwt, compute_bwt,  # noqa: E402
+from bwtb3m.engine import (BwtOptions, check_bwt, compute_bwt,  # noqa: E402
                                compute_ssa)
-from bwtb3m_tpu.index.fm import FMIndex  # noqa: E402
+from bwtb3m.index.fm import FMIndex  # noqa: E402
 
 
 def main():

@@ -16,9 +16,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     import jax.numpy as jnp
 
-    from bwtb3m_tpu.ops.doubling import bwt_from_sa, suffix_array_jax
-    from bwtb3m_tpu.ops.lf import lf_walk
-    from bwtb3m_tpu.ops.rank import build_occ
+    from bwtb3m.ops.doubling import bwt_from_sa, suffix_array_jax
+    from bwtb3m.ops.lf import lf_walk
+    from bwtb3m.ops.rank import build_occ
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 22
     steps = int(sys.argv[2]) if len(sys.argv) > 2 else 256

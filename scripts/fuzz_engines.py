@@ -27,11 +27,11 @@ def main():
         pass
     from oracle import naive_bwt, naive_circular_sa
 
-    from bwtb3m_tpu.engine.merge import blockwise_bwt
-    from bwtb3m_tpu.engine.merge_scaled import blockwise_bwt_scaled
-    from bwtb3m_tpu.engine.options import BwtOptions
-    from bwtb3m_tpu.ops.doubling import suffix_array, suffix_array_ls
-    from bwtb3m_tpu.util.log import VerboseLog
+    from bwtb3m.engine.merge import blockwise_bwt
+    from bwtb3m.engine.merge_scaled import blockwise_bwt_scaled
+    from bwtb3m.engine.options import BwtOptions
+    from bwtb3m.ops.doubling import suffix_array, suffix_array_ls
+    from bwtb3m.util.log import VerboseLog
 
     budget = float(sys.argv[1]) if len(sys.argv) > 1 else 120.0
     seed = int(sys.argv[2]) if len(sys.argv) > 2 else 12345

@@ -7,7 +7,7 @@ import struct
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.io.bam import (BGZFWriter, BamWriter, bgzf_decompress,
+from bwtb3m.io.bam import (BGZFWriter, BamWriter, bgzf_decompress,
                                read_bam, reg2bin)
 
 
@@ -65,8 +65,8 @@ def test_reg2bin_spec_examples():
 
 
 def test_allhamdna_bam_matches_sam(tmp_path, capsys):
-    from bwtb3m_tpu.cli import dispatch as run
-    from bwtb3m_tpu.io.pac import write_pac
+    from bwtb3m.cli import dispatch as run
+    from bwtb3m.io.pac import write_pac
     rng = np.random.default_rng(4)
     codes = rng.integers(0, 4, 600, dtype=np.int32)
     pacp = str(tmp_path / "h.pac")

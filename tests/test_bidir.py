@@ -7,7 +7,7 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from bwtb3m_tpu.index.bidir import BidirectionalFMIndex
+from bwtb3m.index.bidir import BidirectionalFMIndex
 from oracle import naive_circular_sa
 
 
@@ -86,7 +86,7 @@ def test_bidir_mixed_extension_order():
 
 
 def test_rank_all_matches_per_symbol():
-    from bwtb3m_tpu.ops.focc_bp import (build_focc_bp, rank_all_batch_bp,
+    from bwtb3m.ops.focc_bp import (build_focc_bp, rank_all_batch_bp,
                                         rank_batch_bp)
     rng = np.random.default_rng(17)
     for sigma in (2, 5, 8):

@@ -8,9 +8,9 @@ import os
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.engine.options import BwtOptions
-from bwtb3m_tpu.engine.merge_scaled import blockwise_bwt_scaled
-from bwtb3m_tpu.util.log import VerboseLog
+from bwtb3m.engine.options import BwtOptions
+from bwtb3m.engine.merge_scaled import blockwise_bwt_scaled
+from bwtb3m.util.log import VerboseLog
 
 
 def _opts(tmp_path, tag, **kw):
@@ -27,7 +27,7 @@ def _regfiles(opts):
 
 
 def test_kill_and_resume_bit_identical(tmp_path, monkeypatch):
-    import bwtb3m_tpu.engine.merge_scaled as ms
+    import bwtb3m.engine.merge_scaled as ms
 
     rng = np.random.default_rng(31)
     n = 7000                      # 7 blocks -> 6 merges over 3 levels
@@ -73,7 +73,7 @@ def test_kill_and_resume_bit_identical(tmp_path, monkeypatch):
 
 def test_stale_key_ignored(tmp_path, monkeypatch):
     """Checkpoints from a DIFFERENT text must not resume into a build."""
-    import bwtb3m_tpu.engine.merge_scaled as ms
+    import bwtb3m.engine.merge_scaled as ms
 
     monkeypatch.setenv("BWTB3M_CKPT_SYNC", "1")
     rng = np.random.default_rng(7)
@@ -111,7 +111,7 @@ def test_hostmem_text_spill(tmp_path):
     tmp_prefix; output identical, spill file removed afterwards."""
     import glob
 
-    from bwtb3m_tpu.engine import BwtOptions as BO, compute_bwt
+    from bwtb3m.engine import BwtOptions as BO, compute_bwt
 
     rng = np.random.default_rng(4)
     data = rng.integers(97, 101, 6000, dtype=np.uint8)
@@ -130,14 +130,14 @@ def test_hostmem_text_spill(tmp_path):
 
 def test_bounded_ingestion_memmap_load(tmp_path, monkeypatch):
     """hostmem=: the text loads as a read-only memmap without a full
-    in-RAM transient (VERDICT r4 missing #2) — bytestream maps the input
+    in-RAM transient — bytestream maps the input
     file zero-copy; pacterm decodes chunk-by-chunk into a spill that is
     removed after the build; outputs identical to the unbounded path."""
     import glob
 
-    from bwtb3m_tpu.engine import BwtOptions as BO, compute_bwt
-    from bwtb3m_tpu.io.inputtypes import parse_input_type
-    from bwtb3m_tpu.io.pac import write_pac
+    from bwtb3m.engine import BwtOptions as BO, compute_bwt
+    from bwtb3m.io.inputtypes import parse_input_type
+    from bwtb3m.io.pac import write_pac
 
     # loader-level: bytestream is zero-copy; full .load never called
     rng = np.random.default_rng(8)
@@ -175,13 +175,13 @@ def test_bounded_ingestion_memmap_load(tmp_path, monkeypatch):
 
 
 def test_backlog_cap_and_forced_root_children(tmp_path, monkeypatch):
-    """Byte-sized backlog cap (VERDICT r4 weak #8): with slow downloads
+    """Byte-sized backlog cap: with slow downloads
     and a tiny pending-bytes budget, non-forced offers are skipped with
     a WARNING — but a skipped span stays re-offerable, and the engine's
     force+drain ahead of the root merge persists both children."""
     import time
 
-    from bwtb3m_tpu.engine.checkpoint import (MergeCheckpointer,
+    from bwtb3m.engine.checkpoint import (MergeCheckpointer,
                                               region_path)
 
     monkeypatch.setenv("BWTB3M_CKPT_PENDING_BYTES", "1")
@@ -207,7 +207,7 @@ def test_backlog_cap_and_forced_root_children(tmp_path, monkeypatch):
 
     def slow_get(reg):
         def get():
-            time.sleep(0.2)  # a minutes-long relay download, scaled down
+            time.sleep(0.2)  # a long device download, scaled down
             return np.zeros(reg.e - reg.s, np.uint8)
         return get
 

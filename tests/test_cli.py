@@ -7,9 +7,9 @@ import sys
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.cli import dispatch
-from bwtb3m_tpu.io import compact, formats
-from bwtb3m_tpu.io.pac import write_pac
+from bwtb3m.cli import dispatch
+from bwtb3m.io import compact, formats
+from bwtb3m.io.pac import write_pac
 from oracle import naive_bwt, naive_circular_sa, random_string
 
 
@@ -52,7 +52,7 @@ def test_fagz_to_compact4_meta(tmp_path):
     assert run(["fagzToCompact4", "outputfilename=" + out, "seed=7", fa]) == 0
     sym, bits = compact.read_compact(out)
     assert bits == 2 and len(sym) == 10
-    from bwtb3m_tpu.cli.prep import read_compact4_meta
+    from bwtb3m.cli.prep import read_compact4_meta
     meta = read_compact4_meta(out + ".meta")
     assert meta == [(6, [(2, 4)]), (4, [])]
     # non-N bases intact
@@ -90,7 +90,7 @@ def test_full_pipeline_bwtb3m_checkbwt(tmp_path):
     assert run(["checkbwt", "inputtype=bytestream", str(inp),
                 str(inp) + ".bwt"]) == 0
     # decode RL back to bytes: must equal oracle BWT
-    from bwtb3m_tpu.io.rl import rl_decode
+    from bwtb3m.io.rl import rl_decode
     text = np.frombuffer(data, np.uint8).astype(np.int32)
     np.testing.assert_array_equal(rl_decode(str(inp) + ".bwt"),
                                   naive_bwt(text))
@@ -106,7 +106,7 @@ def test_bwa_pipeline(tmp_path):
     out_sa = str(tmp_path / "bwa.sa")
     assert run(["bwtb3mtobwa", pacp + ".bwt", out_bwt, out_sa,
                 "verbose=0"]) == 0
-    from bwtb3m_tpu.index.bwa import read_bwa_bwt
+    from bwtb3m.index.bwa import read_bwa_bwt
     primary, L2, bases = read_bwa_bwt(out_bwt)
     assert len(bases) == 500
 
@@ -122,13 +122,13 @@ def test_converters(tmp_path):
     assert run(["bwttodnarank", bwt]) == 0
     assert run(["bwttodnarank256", "outputfilename=%s" % (bwt + ".dr256"), bwt]) == 0
     # hwt decodes to the bwt
-    from bwtb3m_tpu.index.wavelet import HuffmanWaveletTree
-    from bwtb3m_tpu.io.rl import rl_decode
+    from bwtb3m.index.wavelet import HuffmanWaveletTree
+    from bwtb3m.io.rl import rl_decode
     base = pacp
     wt = HuffmanWaveletTree.read(base + ".hwt")
     np.testing.assert_array_equal(wt.decode_all(), rl_decode(bwt))
     # dnarank rank matches
-    from bwtb3m_tpu.index.dnarank import DNARank
+    from bwtb3m.index.dnarank import DNARank
     dr = DNARank.read(base + ".dnarank")
     bwtarr = rl_decode(bwt)
     assert dr.rank(2, 100) == int(np.count_nonzero(bwtarr[:100] == 2))
@@ -224,7 +224,7 @@ def test_probescan_occ_mode(tmp_path, capsys):
     rng = np.random.default_rng(7)
     codes = rng.integers(0, 4, 1000, dtype=np.int32)
     pacp = str(tmp_path / "o.pac")
-    from bwtb3m_tpu.io.pac import write_pac as _wp
+    from bwtb3m.io.pac import write_pac as _wp
     _wp(pacp, codes)
     assert run(["bwtb3m", "inputtype=pacterm", "verbose=0", pacp]) == 0
     bases = "ACGT"
@@ -245,7 +245,7 @@ def test_probescan_occ_mode(tmp_path, capsys):
 def test_every_tool_usage_line():
     """Arg-less invocation of every registered tool prints usage and exits
     nonzero without crashing (the whole 29-tool surface)."""
-    from bwtb3m_tpu.cli import TOOLS, load_all
+    from bwtb3m.cli import TOOLS, load_all
     load_all()
     assert len(TOOLS) >= 29, sorted(TOOLS)
     for name, fn in sorted(TOOLS.items()):
@@ -326,7 +326,7 @@ def test_fa4suffixarraytocompact(tmp_path):
 
 
 def test_fagz_bigband_layouts(tmp_path):
-    from bwtb3m_tpu.cli.prep import _map_seq, _revcomp
+    from bwtb3m.cli.prep import _map_seq, _revcomp
     fa = str(tmp_path / "bb.fa")
     _write_fasta(fa, [("s1", "ACGT"), ("s2", "GGC")])
     s1 = _map_seq(b"ACGT")
@@ -357,7 +357,7 @@ def test_decodecompact_cli(tmp_path, capsysbinary):
 
 
 def test_bytestream_to_lz4_cli(tmp_path):
-    from bwtb3m_tpu.io.lz4io import read_lz4_stream
+    from bwtb3m.io.lz4io import read_lz4_stream
     src = str(tmp_path / "s.bin")
     rng = np.random.default_rng(3)
     # compressible + random mix, multiple 64k blocks

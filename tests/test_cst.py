@@ -8,7 +8,7 @@ prefixed by w.
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.index.cst import CompressedSuffixTree
+from bwtb3m.index.cst import CompressedSuffixTree
 from oracle import naive_circular_sa
 
 
@@ -131,9 +131,9 @@ def test_cst_lca():
 
 def test_cst_from_files(tmp_path):
     # end-to-end through the suite's own outputs (.ulcp/.rmm/.sa rate 1)
-    from bwtb3m_tpu.io import formats
-    from bwtb3m_tpu.lcp.rmm import RMMTree
-    from bwtb3m_tpu.lcp.wavelet_lcp import write_ulcp
+    from bwtb3m.io import formats
+    from bwtb3m.lcp.rmm import RMMTree
+    from bwtb3m.lcp.wavelet_lcp import write_ulcp
 
     rng = np.random.default_rng(17)
     text, sa, lcp, _ = _mk(rng.integers(0, 3, 30))

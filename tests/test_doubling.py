@@ -7,7 +7,7 @@ Mirrors the reference's exhaustive-tiny + random test style
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.ops.doubling import suffix_array
+from bwtb3m.ops.doubling import suffix_array
 from oracle import all_strings, naive_bwt, naive_circular_sa, random_string
 
 
@@ -62,7 +62,7 @@ def test_long_runs():
 def test_ls_matches_jax_variant():
     """The tie-compacted engine path and the single-graph variant agree."""
     import jax.numpy as jnp
-    from bwtb3m_tpu.ops.doubling import (bwt_from_sa, suffix_array_jax,
+    from bwtb3m.ops.doubling import (bwt_from_sa, suffix_array_jax,
                                          suffix_array_ls)
     for seed, sigma in [(0, 4), (1, 2), (2, 256)]:
         text = random_string(700, sigma, seed=seed)

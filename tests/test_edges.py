@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.cli import dispatch
-from bwtb3m_tpu.engine import BwtOptions, check_bwt, compute_bwt
-from bwtb3m_tpu.io.rl import rl_encode
-from bwtb3m_tpu.ops.doubling import suffix_array
-from bwtb3m_tpu.parallel.dist import host_local_slice
+from bwtb3m.cli import dispatch
+from bwtb3m.engine import BwtOptions, check_bwt, compute_bwt
+from bwtb3m.io.rl import rl_encode
+from bwtb3m.ops.doubling import suffix_array
+from bwtb3m.parallel.dist import host_local_slice
 from oracle import naive_bwt
 
 
@@ -42,7 +42,7 @@ def test_checkbwt_cli_corruption_exit_code(tmp_path):
     inp.write_bytes(data)
     assert dispatch(["bwtb3m", "verbose=0", str(inp)]) == 0
     # corrupt
-    from bwtb3m_tpu.io.rl import rl_decode
+    from bwtb3m.io.rl import rl_decode
     bwt = rl_decode(str(inp) + ".bwt")
     i = int(np.flatnonzero(bwt[1:] != bwt[:-1])[0])
     bwt[i], bwt[i + 1] = bwt[i + 1], bwt[i]

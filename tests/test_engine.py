@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.engine import (BwtOptions, BwtResult, check_bwt, compute_bwt,
+from bwtb3m.engine import (BwtOptions, BwtResult, check_bwt, compute_bwt,
                                compute_ssa)
-from bwtb3m_tpu.engine.ssa import compute_isa_from_preisa
-from bwtb3m_tpu.io import formats, rl
-from bwtb3m_tpu.io.pac import write_pac
+from bwtb3m.engine.ssa import compute_isa_from_preisa
+from bwtb3m.io import formats, rl
+from bwtb3m.io.pac import write_pac
 from oracle import naive_bwt, naive_circular_sa, random_string
 
 
@@ -125,7 +125,7 @@ def test_result_reload(tmp_path):
 
 
 def test_select_ssa(tmp_path):
-    from bwtb3m_tpu.engine.ssa import select_ssa
+    from bwtb3m.engine.ssa import select_ssa
     rng = np.random.default_rng(17)
     data = bytes(rng.integers(97, 101, size=1200, dtype=np.uint8))
     inp = _write_bytes(tmp_path, data, "sel.bin")
@@ -142,8 +142,8 @@ def test_device_rows_handoff(tmp_path):
     """An in-process pipeline (merge build -> checkbwt -> ssa) consumes
     the final region's device rows for the rank structure instead of
     re-uploading the .bwt; results identical to a cold reload."""
-    from bwtb3m_tpu.engine import result as result_mod
-    from bwtb3m_tpu.engine.ssa import compute_ssa
+    from bwtb3m.engine import result as result_mod
+    from bwtb3m.engine.ssa import compute_ssa
 
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 4, size=5000, dtype=np.int32)
@@ -158,7 +158,7 @@ def test_device_rows_handoff(tmp_path):
     assert check_bwt(res, text)                  # consumes the rows
     assert len(result_mod._ROWS_CACHE) == 0
     sa_path, _ = compute_ssa(res.bwt_path, 16, 16, log=None)
-    from bwtb3m_tpu.io import formats as fmt
+    from bwtb3m.io import formats as fmt
     _r, sa_vals = fmt.read_sampled_array(sa_path)
     np.testing.assert_array_equal(sa_vals, naive_circular_sa(text)[::16])
 
@@ -167,7 +167,7 @@ def test_select_ssa_bwtonly(tmp_path):
     """BwtSelectSSA semantics: arbitrary ranks from .bwt + .preisa ALONE
     (no sampled .sa — the reference selects mid-lcpbit on a bwtonly=1
     build, /root/reference/src/lcpbit.cpp:2417-2441)."""
-    from bwtb3m_tpu.engine.ssa import select_ssa
+    from bwtb3m.engine.ssa import select_ssa
     rng = np.random.default_rng(23)
     data = bytes(rng.integers(97, 101, size=3000, dtype=np.uint8))
     inp = _write_bytes(tmp_path, data, "selb.bin")
@@ -192,9 +192,9 @@ def test_ssa_wrap_lane_fused(tmp_path):
     positions came out off by 2^32 - n, and wrap-lane ISA samples landed
     on the wrong grid whenever n % isarate != 0)."""
     import numpy as np
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt, compute_ssa
-    from bwtb3m_tpu.io import formats
-    from bwtb3m_tpu.ops.doubling import suffix_array
+    from bwtb3m.engine import BwtOptions, compute_bwt, compute_ssa
+    from bwtb3m.io import formats
+    from bwtb3m.ops.doubling import suffix_array
 
     rng = np.random.default_rng(303)
     n = 5437  # prime: n % isarate != 0 for every rate used below
@@ -216,12 +216,12 @@ def test_ssa_wrap_lane_fused(tmp_path):
 
 def test_focc_cache_invalidation(tmp_path):
     # load_focc memoizes per (path, mtime, size): same file hits the
-    # cache (identity), a rewritten .bwt must rebuild (BENCH.md round 3:
-    # the build is transfer-bound, one pipeline should pay it once)
+    # cache (identity), a rewritten .bwt must rebuild (the build is
+    # transfer-bound, one pipeline should pay it once)
     import os
     import time as _t
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt
-    from bwtb3m_tpu.engine.result import BwtResult
+    from bwtb3m.engine import BwtOptions, compute_bwt
+    from bwtb3m.engine.result import BwtResult
 
     rng = np.random.default_rng(7)
     raw = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=3000)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.ops.focc import (
+from bwtb3m.ops.focc import (
     access_batch_f, backward_step_f, build_focc, lf_step_batch_f,
     rank_batch_f)
 
@@ -32,8 +32,8 @@ def test_focc_rank_access_random():
 
 
 def test_focc_lf_matches_occtable():
-    from bwtb3m_tpu.ops.lf import lf_step_batch
-    from bwtb3m_tpu.ops.rank import build_occ
+    from bwtb3m.ops.lf import lf_step_batch
+    from bwtb3m.ops.rank import build_occ
     rng = np.random.default_rng(1)
     n, sigma = 4096, 5
     bwt = rng.integers(0, sigma, n).astype(np.int32)
@@ -75,8 +75,8 @@ def test_focc_bitplane_vs_byterow():
     """The sigma<=8 bit-plane structure (ops/focc_bp.py) must agree with
     the byte-row FusedOcc on every query type, including i == n and the
     padded tail block."""
-    from bwtb3m_tpu.ops.focc import BLOCK, _build_focc_jax, _pad_rows
-    from bwtb3m_tpu.ops.focc_bp import (
+    from bwtb3m.ops.focc import BLOCK, _build_focc_jax, _pad_rows
+    from bwtb3m.ops.focc_bp import (
         access_batch_bp, backward_step_bp, build_focc_bp, lf_step_batch_bp,
         rank_batch_bp)
 
@@ -116,7 +116,7 @@ def test_lf_step_fused_two_stage_matches():
     # lf_step_batch_bp2 (two-reduction fused arithmetic) must equal the
     # naive composition on every rank
     import numpy as np
-    from bwtb3m_tpu.ops.focc_bp import (build_focc_bp, lf_step_batch_bp,
+    from bwtb3m.ops.focc_bp import (build_focc_bp, lf_step_batch_bp,
                                         lf_step_batch_bp2)
     rng = np.random.default_rng(41)
     for sigma in (2, 5, 8):

@@ -11,9 +11,9 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from bwtb3m_tpu.ops.focc import (
+from bwtb3m.ops.focc import (
     access_batch_f, build_focc, lf_step_batch_f, rank_batch_f)
-from bwtb3m_tpu.ops.focc_build import build_focc_host
+from bwtb3m.ops.focc_build import build_focc_host
 
 
 def _assert_equivalent(f_ref, f_new, n, sigma, rng):

@@ -5,10 +5,10 @@ paths (u16 wrap, HBM gate)."""
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.engine.options import BwtOptions
-from bwtb3m_tpu.engine.merge_scaled import blockwise_bwt_scaled
-from bwtb3m_tpu.ops.doubling import suffix_array
-from bwtb3m_tpu.util.log import VerboseLog
+from bwtb3m.engine.options import BwtOptions
+from bwtb3m.engine.merge_scaled import blockwise_bwt_scaled
+from bwtb3m.ops.doubling import suffix_array
+from bwtb3m.util.log import VerboseLog
 
 
 def _opts(n, nb, tmp_path, **kw):

@@ -19,12 +19,12 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from bwtb3m_tpu.engine.merge_scaled import (_Ctx, _merge_pair_scaled,
+from bwtb3m.engine.merge_scaled import (_Ctx, _merge_pair_scaled,
                                             _sort_block_scaled,
                                             blockwise_bwt_scaled)
-from bwtb3m_tpu.engine.options import BwtOptions
-from bwtb3m_tpu.ops import gapwide
-from bwtb3m_tpu.util.log import VerboseLog
+from bwtb3m.engine.options import BwtOptions
+from bwtb3m.ops import gapwide
+from bwtb3m.util.log import VerboseLog
 
 TWO32 = 1 << 32
 
@@ -113,7 +113,7 @@ def test_wide_pair_merge_matches_narrow(monkeypatch):
     ctx2, regs2 = _regions(text, 5, 3072)
     monkeypatch.setenv("BWTB3M_FORCE_WIDE", "1")
     wide = _merge_pair_scaled(ctx2, regs2[0], regs2[1])
-    from bwtb3m_tpu.engine.merge_scaled import _region_bwt
+    from bwtb3m.engine.merge_scaled import _region_bwt
     assert np.array_equal(_region_bwt(ctx2, wide), _region_bwt(ctx, narrow))
     assert np.array_equal(wide.samp_pos, narrow.samp_pos)
     assert np.array_equal(wide.samp_rank, narrow.samp_rank)
@@ -123,10 +123,10 @@ def test_wide_pair_merge_matches_narrow(monkeypatch):
 
 def test_wide_pair_merge_repetitive_int32_rerun(monkeypatch):
     """Exercises the wide runner's force_int32 rerun path for real
-    (ADVICE round 3: at this size no u16 cell can wrap naturally, so the
+    (at this size no u16 cell can wrap naturally, so the
     checksum is stubbed to mismatch once) and pins bit-identity of the
     rerun result against the narrow merge."""
-    from bwtb3m_tpu.ops.gapwide import WideDeviceGapRunner
+    from bwtb3m.ops.gapwide import WideDeviceGapRunner
 
     rng = np.random.default_rng(11)
     base = rng.integers(0, 4, 64).astype(np.uint8)
@@ -154,14 +154,14 @@ def test_wide_pair_merge_repetitive_int32_rerun(monkeypatch):
     monkeypatch.setattr(WideDeviceGapRunner, "run_chains", spy_run)
     wide = _merge_pair_scaled(ctx2, regs2[0], regs2[1])
     assert calls["forced"] == 1, "int32 rerun branch must fire"
-    from bwtb3m_tpu.engine.merge_scaled import _region_bwt
+    from bwtb3m.engine.merge_scaled import _region_bwt
     assert np.array_equal(_region_bwt(ctx2, wide), _region_bwt(ctx, narrow))
     assert np.array_equal(wide.samp_rank, narrow.samp_rank)
 
 
 @pytest.mark.slow
 def test_force_wide_build_end_to_end(monkeypatch):
-    from bwtb3m_tpu.ops.doubling import suffix_array
+    from bwtb3m.ops.doubling import suffix_array
 
     rng = np.random.default_rng(23)
     text = rng.integers(0, 6, 20000).astype(np.uint8)
@@ -184,7 +184,7 @@ def test_scale_gate_moved_to_2_35():
     """The up-front gate moved from 2^33 to the wide runner's real bound
     (THR_K wrap tracking, ops/wideocc.py): lengths in [2^33, 2^35) pass
     validation (their big merges dispatch the wide runner), 2^35 raises."""
-    from bwtb3m_tpu.engine.merge_scaled import _validate_scale
+    from bwtb3m.engine.merge_scaled import _validate_scale
     _validate_scale((1 << 33) + 5)
     _validate_scale((1 << 35) - 1)
     with pytest.raises(ValueError, match="2\\^35"):

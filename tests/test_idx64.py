@@ -1,6 +1,6 @@
 """ops/idx64: uint32 gather/scatter correctness, including past 2^31.
 
-The >2^31 case is the round-2 ADVICE high finding: jnp.take with int32
+The >2^31 case: jnp.take with int32
 indices silently corrupts every text position past 2^31 in the region
 derive (engine/merge_scaled.py). A raw lax.gather with uint32 indices is
 the fix; these tests pin its semantics (big-array case kept to a handful
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from bwtb3m_tpu.ops.idx64 import scatter_set_u32, take_u32
+from bwtb3m.ops.idx64 import scatter_set_u32, take_u32
 
 
 def test_take_u32_small():

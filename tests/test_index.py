@@ -3,13 +3,13 @@ import io as _io
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.index.bitvector import RankBitVector, RLBitVector
-from bwtb3m_tpu.index.bwa import read_bwa_bwt, read_bwa_sa, rewrite
-from bwtb3m_tpu.index.dnarank import DNARank
-from bwtb3m_tpu.index.fm import FMIndex
-from bwtb3m_tpu.index.huffman import HuffmanTree
-from bwtb3m_tpu.index.sampled import SampledSA
-from bwtb3m_tpu.index.wavelet import HuffmanWaveletTree, RLHuffmanWaveletTree
+from bwtb3m.index.bitvector import RankBitVector, RLBitVector
+from bwtb3m.index.bwa import read_bwa_bwt, read_bwa_sa, rewrite
+from bwtb3m.index.dnarank import DNARank
+from bwtb3m.index.fm import FMIndex
+from bwtb3m.index.huffman import HuffmanTree
+from bwtb3m.index.sampled import SampledSA
+from bwtb3m.index.wavelet import HuffmanWaveletTree, RLHuffmanWaveletTree
 from oracle import naive_bwt, naive_circular_sa, random_string
 
 
@@ -103,7 +103,7 @@ def test_dnarank(tmp_path, block):
 
 
 def _make_result(tmp_path, text, name="t", **kw):
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt
+    from bwtb3m.engine import BwtOptions, compute_bwt
     inp = tmp_path / (name + ".bin")
     inp.write_bytes(bytes(bytearray(np.asarray(text, np.uint8))))
     kw.setdefault("preisa_sampling_rate", 128)
@@ -143,8 +143,8 @@ def test_fm_index_search_locate_extract(tmp_path):
 
 def test_fm_dnarank_backend(tmp_path):
     # pac (4-symbol, no terminator) BWT with DNARank backend
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt
-    from bwtb3m_tpu.io.pac import write_pac
+    from bwtb3m.engine import BwtOptions, compute_bwt
+    from bwtb3m.io.pac import write_pac
     codes = random_string(600, 4, seed=9)
     pacp = str(tmp_path / "x.pac")
     write_pac(pacp, codes)
@@ -168,8 +168,8 @@ def test_sampled_sa_subsample():
 
 
 def test_bwa_export(tmp_path):
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt
-    from bwtb3m_tpu.io.pac import write_pac
+    from bwtb3m.engine import BwtOptions, compute_bwt
+    from bwtb3m.io.pac import write_pac
     rng = np.random.default_rng(12)
     codes = rng.integers(0, 4, size=777, dtype=np.int32)
     pacp = str(tmp_path / "g.pac")
@@ -216,7 +216,7 @@ def test_wavelet_sparse_large_symbols(tmp_path):
 
 def test_fm_backward_search_wide_alphabet(tmp_path):
     # engine + FM search over a utf-8 text
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt
+    from bwtb3m.engine import BwtOptions, compute_bwt
     text = ("αβγδ εζηθ ικλμ " * 40) + "νξοπ"
     p = tmp_path / "g.txt"
     p.write_text(text, encoding="utf-8")

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from bwtb3m_tpu.engine import BwtOptions, check_bwt, compute_bwt
-from bwtb3m_tpu.io import compact
-from bwtb3m_tpu.io.lz4io import write_lz4_stream
-from bwtb3m_tpu.io.pac import write_pac
+from bwtb3m.engine import BwtOptions, check_bwt, compute_bwt
+from bwtb3m.io import compact
+from bwtb3m.io.lz4io import write_lz4_stream
+from bwtb3m.io.pac import write_pac
 from oracle import naive_bwt, random_string
 
 
@@ -47,7 +47,7 @@ def test_pac(tmp_path):
 
 
 def test_digits_roundtrip_through_engine(tmp_path):
-    from bwtb3m_tpu.cli import dispatch
+    from bwtb3m.cli import dispatch
     txt = tmp_path / "d.txt"
     txt.write_text("1415926535897932384626433832795" * 10)
     out = str(tmp_path / "d.compact")

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.io import compact, formats, lz4io, pac, rl
-from bwtb3m_tpu.io.inputtypes import (circular_reverse_slice, circular_slice,
+from bwtb3m.io import compact, formats, lz4io, pac, rl
+from bwtb3m.io.inputtypes import (circular_reverse_slice, circular_slice,
                                       parse_input_type)
 
 

@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.lcp.plcp import (PLCPBitDecoder, compute_plcp,
+from bwtb3m.lcp.plcp import (PLCPBitDecoder, compute_plcp,
                                  decode_plcp_bits, encode_plcp_bits,
                                  kasai_plcp, write_plcp_file)
-from bwtb3m_tpu.lcp.rmm import RMMTree
+from bwtb3m.lcp.rmm import RMMTree
 from oracle import all_strings, naive_circular_sa, random_string
 
 
@@ -63,7 +63,7 @@ def test_rmm_tree(tmp_path):
 
 @pytest.mark.slow
 def test_lcpbit_selftest_harness():
-    from bwtb3m_tpu.lcp.selftest import testn, testnk, testrandomn
+    from bwtb3m.lcp.selftest import testn, testnk, testrandomn
     testn([ord(c) for c in "abbab#"])
     testnk(4, 2)
     testrandomn(512, 8, seed=3)
@@ -72,7 +72,7 @@ def test_lcpbit_selftest_harness():
 def test_plcp_scaled_matches_oracle():
     # O(n)-memory batched-Kasai path vs the Phi/Kasai host oracle
     import numpy as np
-    from bwtb3m_tpu.lcp.plcp import compute_plcp_scaled, kasai_plcp
+    from bwtb3m.lcp.plcp import compute_plcp_scaled, kasai_plcp
     rng = np.random.default_rng(13)
     for n, mk in ((5000, "r"), (3000, "p")):
         if mk == "r":
@@ -87,13 +87,13 @@ def test_plcp_scaled_matches_oracle():
 
 
 def test_plcp_byte_alphabet_scaled_and_device():
-    # sigma <= 256 path (VERDICT r4 missing #1): byte windows in the
+    # sigma <= 256 path: byte windows in the
     # word-window Kasai kernel, both the slab machine and the fully
     # device-resident path, vs the host Phi/Kasai oracle
     import numpy as np
-    from bwtb3m_tpu.lcp.plcp import (compute_plcp_device,
+    from bwtb3m.lcp.plcp import (compute_plcp_device,
                                      compute_plcp_scaled, kasai_plcp)
-    from bwtb3m_tpu.ops.doubling import suffix_array
+    from bwtb3m.ops.doubling import suffix_array
     import jax.numpy as jnp
     rng = np.random.default_rng(41)
     n = 4096
@@ -136,7 +136,7 @@ def test_plcp_scaled_slab_striping():
     # exercises the precomputed (sa, isa) input that skips the doubling
     # sort at reference scale
     import numpy as np
-    from bwtb3m_tpu.lcp.plcp import compute_plcp_scaled, kasai_plcp
+    from bwtb3m.lcp.plcp import compute_plcp_scaled, kasai_plcp
     rng = np.random.default_rng(31)
     n = 7001
     text = rng.integers(0, 4, n).astype(np.int32)

@@ -8,12 +8,12 @@ force tiny max_block_symbols and assert bit-equality against engine A.
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.engine.merge import blockwise_bwt
-from bwtb3m_tpu.engine.options import BwtOptions
-from bwtb3m_tpu.ops.doubling import suffix_array
-from bwtb3m_tpu.ops.gap import compute_gt0
-from bwtb3m_tpu.ops.windowsort import block_suffix_order
-from bwtb3m_tpu.util.log import VerboseLog
+from bwtb3m.engine.merge import blockwise_bwt
+from bwtb3m.engine.options import BwtOptions
+from bwtb3m.ops.doubling import suffix_array
+from bwtb3m.ops.gap import compute_gt0
+from bwtb3m.ops.windowsort import block_suffix_order
+from bwtb3m.util.log import VerboseLog
 from oracle import naive_circular_sa, random_string
 
 
@@ -108,14 +108,14 @@ def test_blockwise_many_segments(tmp_path):
 
 @pytest.mark.slow
 def test_engine_dispatches_to_blockwise(tmp_path):
-    from bwtb3m_tpu.engine import BwtOptions as BO, check_bwt, compute_bwt
+    from bwtb3m.engine import BwtOptions as BO, check_bwt, compute_bwt
     data = bytes(random_string(3000, 4, seed=77).astype(np.uint8) + 97)
     inp = tmp_path / "big.bin"
     inp.write_bytes(data)
     res = compute_bwt(BO(input_path=str(inp), max_block_symbols=1000,
                          preisa_sampling_rate=512, verbose=0))
     text = np.frombuffer(data, np.uint8).astype(np.int32)
-    from bwtb3m_tpu.io.rl import rl_decode
+    from bwtb3m.io.rl import rl_decode
     _sa, _isa, bwt = suffix_array(text, 256)
     np.testing.assert_array_equal(rl_decode(res.bwt_path), bwt)
     assert check_bwt(res, text)

@@ -4,10 +4,10 @@ doubling engine — bit-identical BWT, preisa samples, r_start."""
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.engine.options import BwtOptions
-from bwtb3m_tpu.engine.merge_scaled import blockwise_bwt_scaled
-from bwtb3m_tpu.ops.doubling import suffix_array
-from bwtb3m_tpu.util.log import VerboseLog
+from bwtb3m.engine.options import BwtOptions
+from bwtb3m.engine.merge_scaled import blockwise_bwt_scaled
+from bwtb3m.ops.doubling import suffix_array
+from bwtb3m.util.log import VerboseLog
 
 
 def _opts(n, nb, tmp_path):
@@ -68,7 +68,7 @@ def test_scaled_pacterm_like(tmp_path):
 def test_scaled_via_compute_bwt_engine_merge(tmp_path):
     # end-to-end through the api: engine="merge" now routes to the scaled
     # implementation; checkbwt + bwtcomputessa must accept its outputs
-    from bwtb3m_tpu.engine import check_bwt, compute_bwt, compute_ssa
+    from bwtb3m.engine import check_bwt, compute_bwt, compute_ssa
     rng = np.random.default_rng(11)
     n = 6000
     raw = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n)
@@ -80,7 +80,7 @@ def test_scaled_via_compute_bwt_engine_merge(tmp_path):
     text = raw.astype(np.int32)
     assert check_bwt(res, text)
     sa_path, isa_path = compute_ssa(res.bwt_path, 32, 64)
-    from bwtb3m_tpu.io import formats
+    from bwtb3m.io import formats
     _r, sa_vals = formats.read_sampled_array(sa_path)
     sa, isa, _ = suffix_array(text, int(text.max()) + 1)
     assert np.array_equal(sa_vals, np.asarray(sa)[::32])
@@ -141,7 +141,7 @@ def test_scaled_bytestream_sigma256(tmp_path):
 def test_scaled_bytestream_end_to_end(tmp_path):
     # bytestream through the api: scaled engine + fused checkbwt + ssa at
     # sigma 256 (round-3: memory-bounded construction for wide alphabets)
-    from bwtb3m_tpu.engine import check_bwt, compute_bwt, compute_ssa
+    from bwtb3m.engine import check_bwt, compute_bwt, compute_ssa
     rng = np.random.default_rng(23)
     n = 6000
     raw = rng.integers(0, 256, n, dtype=np.uint8)
@@ -154,7 +154,7 @@ def test_scaled_bytestream_end_to_end(tmp_path):
     text = raw.astype(np.int32)
     assert check_bwt(res, text)
     sa_path, _ = compute_ssa(res.bwt_path, 32, 64)
-    from bwtb3m_tpu.io import formats
+    from bwtb3m.io import formats
     _r, sa_vals = formats.read_sampled_array(sa_path)
     sa, _isa, _ = suffix_array(text, 256)
     assert np.array_equal(sa_vals, np.asarray(sa)[::32])
@@ -163,7 +163,7 @@ def test_scaled_bytestream_end_to_end(tmp_path):
 def test_scaled_wide_alphabet_rank_compacted(tmp_path):
     # utf-8-style wide codepoints: api rank-compacts to dense bytes, runs
     # the scaled engine, and maps the BWT back to original symbols
-    from bwtb3m_tpu.engine import check_bwt, compute_bwt
+    from bwtb3m.engine import check_bwt, compute_bwt
     rng = np.random.default_rng(29)
     n = 4000
     alphabet = np.array([65, 955, 0x4E2D, 0x1F600, 97, 10], np.int32)
@@ -176,7 +176,7 @@ def test_scaled_wide_alphabet_rank_compacted(tmp_path):
         max_block_symbols=1024, preisa_sampling_rate=512, bwt_only=True))
     assert check_bwt(res, text)
     sa, _isa, bwt_d = suffix_array(text, int(text.max()) + 1)
-    from bwtb3m_tpu.io.rl import open_bwt
+    from bwtb3m.io.rl import open_bwt
     with open_bwt(res.bwt_path) as r:
         bwt_file = r.decode_all()
     assert np.array_equal(np.asarray(bwt_file, np.int64),
@@ -185,12 +185,12 @@ def test_scaled_wide_alphabet_rank_compacted(tmp_path):
 
 @pytest.mark.slow
 def test_scaled_periodic_scale_memory_bound(tmp_path):
-    # VERDICT r2 weak #6: prove the block-sort memory bound holds on a
+    # prove the block-sort memory bound holds on a
     # LARGE periodic text (n ~ 10^6, period << n). The _resolve_tie_groups
     # escape hatch (mixed tie runs > 4096 -> grow the window toward n)
     # must never fire; every tie component resolves via the rotation
     # comparator at the bounded lookahead.
-    from bwtb3m_tpu.engine import merge_scaled as ms
+    from bwtb3m.engine import merge_scaled as ms
 
     rng = np.random.default_rng(11)
     seg = rng.integers(0, 4, 64)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from bwtb3m_tpu import native
+from bwtb3m import native
 from oracle import naive_circular_sa, random_string
 
 pytestmark = pytest.mark.skipif(
@@ -24,7 +24,7 @@ def test_native_lz4_roundtrip():
 def test_native_lz4_cross_python():
     # native-compressed decodes with the pure-Python decoder and vice versa
     import os
-    from bwtb3m_tpu.io import lz4io
+    from bwtb3m.io import lz4io
     data = b"the quick brown fox " * 300
     comp_nat = native.lz4_compress(data)
     os.environ["BWTB3M_NO_NATIVE"] = "1"
@@ -42,7 +42,7 @@ def test_native_lz4_cross_python():
 
 
 def test_native_gt0_matches_python():
-    from bwtb3m_tpu.ops import gap
+    from bwtb3m.ops import gap
     for seed in range(5):
         text = random_string(300, 3, seed=seed)
         nat = native.gt0(text)
@@ -61,7 +61,7 @@ def test_native_kasai_matches_oracle():
     nat = native.kasai_plcp(text, sa)
     backup, native._lib, native._tried = native._lib, None, True
     try:
-        from bwtb3m_tpu.lcp.plcp import kasai_plcp
+        from bwtb3m.lcp.plcp import kasai_plcp
         py = kasai_plcp(text, sa)
     finally:
         native._lib = backup

@@ -2,8 +2,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from bwtb3m_tpu.io import compact
-from bwtb3m_tpu.ops.pack import (load_compact_to_device, pack_bits_device,
+from bwtb3m.io import compact
+from bwtb3m.ops.pack import (load_compact_to_device, pack_bits_device,
                                  unpack_bits_device)
 
 

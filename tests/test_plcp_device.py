@@ -6,13 +6,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from bwtb3m_tpu.lcp.plcp import (PLCPBitDecoder, compute_plcp_device,
+from bwtb3m.lcp.plcp import (PLCPBitDecoder, compute_plcp_device,
                                  encode_plcp_bits, encode_plcp_bits_device,
                                  kasai_plcp, write_plcp_bytes)
 
 
 def _sa_dev(text, sigma):
-    from bwtb3m_tpu.ops.doubling import suffix_array
+    from bwtb3m.ops.doubling import suffix_array
     sa, _isa, _bwt = suffix_array(text, sigma)
     return jnp.asarray(np.asarray(sa).astype(np.uint32))
 
@@ -57,8 +57,8 @@ def test_encode_device_matches_host(tmp_path):
 
 def test_compute_sa_device(tmp_path):
     """engine.ssa.compute_sa_device returns the full SA on device."""
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt
-    from bwtb3m_tpu.engine.ssa import compute_sa_device
+    from bwtb3m.engine import BwtOptions, compute_bwt
+    from bwtb3m.engine.ssa import compute_sa_device
 
     rng = np.random.default_rng(9)
     data = rng.integers(97, 101, 4096, dtype=np.uint8)

@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.ops.rank import (OccTable, access_batch, build_occ,
+from bwtb3m.ops.rank import (OccTable, access_batch, build_occ,
                                  rank_batch)
-from bwtb3m_tpu.ops.rank_packed import (access_batch_packed, build_occ_packed,
+from bwtb3m.ops.rank_packed import (access_batch_packed, build_occ_packed,
                                         lf_step_batch_packed,
                                         rank_batch_packed)
-from bwtb3m_tpu.ops.lf import lf_step_batch
+from bwtb3m.ops.lf import lf_step_batch
 from oracle import random_string
 
 import jax.numpy as jnp

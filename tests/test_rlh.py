@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.io.bits import (GammaFile, gamma_decode, gamma_encode,
+from bwtb3m.io.bits import (GammaFile, gamma_decode, gamma_encode,
                                 pack_bitstream, unpack_bitstream)
-from bwtb3m_tpu.io.rl import open_bwt, rl_encode
-from bwtb3m_tpu.io.rlh import RLHReader, rlh_decode, rlh_encode
+from bwtb3m.io.rl import open_bwt, rl_encode
+from bwtb3m.io.rlh import RLHReader, rlh_decode, rlh_encode
 from oracle import random_string
 
 
@@ -54,7 +54,7 @@ def test_rlh_roundtrip(tmp_path, sigma):
 
 
 def test_rlh_python_fallback_matches(tmp_path):
-    from bwtb3m_tpu import native
+    from bwtb3m import native
     sym = np.repeat([0, 3, 1, 2, 1], [5, 1, 300, 7, 2]).astype(np.int32)
     p = str(tmp_path / "y.bwt")
     rlh_encode(p, sym, sigma=4)
@@ -80,7 +80,7 @@ def test_open_bwt_dispatch(tmp_path):
 
 
 def test_engine_rlh_codec(tmp_path):
-    from bwtb3m_tpu.engine import BwtOptions, check_bwt, compute_bwt
+    from bwtb3m.engine import BwtOptions, check_bwt, compute_bwt
     data = bytes(random_string(2000, 4, seed=3).astype(np.uint8) + 97)
     inp = tmp_path / "t.bin"
     inp.write_bytes(data)
@@ -93,7 +93,7 @@ def test_engine_rlh_codec(tmp_path):
 
 
 def test_decoder_cli_rlh(tmp_path, capsysbinary):
-    from bwtb3m_tpu.cli import dispatch
+    from bwtb3m.cli import dispatch
     sym = np.repeat([65, 66, 67], [10, 5, 20]).astype(np.int32)
     p = str(tmp_path / "r.bwt")
     rlh_encode(p, sym, sigma=256)
@@ -103,8 +103,8 @@ def test_decoder_cli_rlh(tmp_path, capsysbinary):
 
 
 def test_rlh_empty_input_roundtrip(tmp_path):
-    # ADVICE r1: the RLH codec must handle n == 0 like rl_encode does
-    from bwtb3m_tpu.io.rlh import RLHReader
+    # the RLH codec must handle n == 0 like rl_encode does
+    from bwtb3m.io.rlh import RLHReader
     p = str(tmp_path / "empty.bwt")
     rlh_encode(p, np.zeros(0, np.int32), sigma=4)
     with RLHReader(p) as r:

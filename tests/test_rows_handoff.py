@@ -1,4 +1,4 @@
-"""Regression tests for the device-rows hand-off (VERDICT r4 weak #1).
+"""Regression tests for the device-rows hand-off.
 
 Round 4 stashed the scaled engine's final device rows in a module global
 and bound them to whatever ``.bwt`` the next ``compute_bwt`` wrote — so a
@@ -14,12 +14,12 @@ reuse, /root/reference/src/checkbwt.cpp:46-53.
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.engine import (BwtOptions, check_bwt, compute_bwt,
+from bwtb3m.engine import (BwtOptions, check_bwt, compute_bwt,
                                compute_ssa)
-from bwtb3m_tpu.engine.result import (_ROWS_CACHE, register_device_rows)
-from bwtb3m_tpu.io import formats
-from bwtb3m_tpu.io.pac import write_pac
-from bwtb3m_tpu.ops.doubling import suffix_array
+from bwtb3m.engine.result import (_ROWS_CACHE, register_device_rows)
+from bwtb3m.io import formats
+from bwtb3m.io.pac import write_pac
+from bwtb3m.ops.doubling import suffix_array
 from oracle import random_string
 
 
@@ -100,7 +100,7 @@ def test_handoff_with_alphabet_compaction(tmp_path):
 
 
 def test_register_refuses_identity_mismatch(tmp_path):
-    from bwtb3m_tpu.engine.merge_scaled import DeviceRowsHandle
+    from bwtb3m.engine.merge_scaled import DeviceRowsHandle
     res, codes = _scaled_pac_build(tmp_path, seed=41, n=3000)
     hist = np.bincount(codes, minlength=4).astype(np.int64)
     # wrong n

@@ -4,11 +4,11 @@ runner (the multi-chip merge engine path, SURVEY.md section 2.3.3)."""
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.ops.doubling import suffix_array
-from bwtb3m_tpu.ops.focc import build_focc
-from bwtb3m_tpu.ops.gapdev import DeviceGapRunner, build_text_rows, upload_bwt
-from bwtb3m_tpu.parallel import make_mesh
-from bwtb3m_tpu.parallel.merge import ShardedGapRunner
+from bwtb3m.ops.doubling import suffix_array
+from bwtb3m.ops.focc import build_focc
+from bwtb3m.ops.gapdev import DeviceGapRunner, build_text_rows, upload_bwt
+from bwtb3m.parallel import make_mesh
+from bwtb3m.parallel.merge import ShardedGapRunner
 
 
 def test_sharded_chains_match_single_device():

@@ -9,11 +9,11 @@ analog: sparse external gap files, /root/reference/src/bwtb3m.cpp:53).
 import numpy as np
 import pytest
 
-from bwtb3m_tpu.ops.doubling import suffix_array
-from bwtb3m_tpu.ops.focc import build_focc
-from bwtb3m_tpu.ops.gapdev import DeviceGapRunner, build_text_rows, upload_bwt
-from bwtb3m_tpu.parallel import make_mesh
-from bwtb3m_tpu.parallel.shocc import ShardedOccGapRunner
+from bwtb3m.ops.doubling import suffix_array
+from bwtb3m.ops.focc import build_focc
+from bwtb3m.ops.gapdev import DeviceGapRunner, build_text_rows, upload_bwt
+from bwtb3m.parallel import make_mesh
+from bwtb3m.parallel.shocc import ShardedOccGapRunner
 
 
 def _setup(sigma, seed, n=1 << 13, rate=0):
@@ -84,8 +84,8 @@ def test_sharded_occ_matches_single_device(sigma):
 def test_sharded_occ_full_merge_bit_identity():
     """Whole scaled build with the occ-sharded executor vs single device."""
     import os
-    from bwtb3m_tpu.engine.merge_scaled import blockwise_bwt_scaled
-    from bwtb3m_tpu.engine.options import BwtOptions
+    from bwtb3m.engine.merge_scaled import blockwise_bwt_scaled
+    from bwtb3m.engine.options import BwtOptions
 
     rng = np.random.default_rng(7)
     n = 6 * 1024

@@ -2,11 +2,12 @@ import os
 import time
 
 import numpy as np
+import pytest
 
-from bwtb3m_tpu.util.args import ArgInfo, ArgParser, parse_size
-from bwtb3m_tpu.util.log import RealTimeClock, SizeMonitor, VerboseLog
-from bwtb3m_tpu.util.serial import (read_number_map, write_number_map)
-from bwtb3m_tpu.util.tmpfiles import (TempFileNameGenerator,
+from bwtb3m.util.args import ArgInfo, ArgParser, parse_size
+from bwtb3m.util.log import RealTimeClock, SizeMonitor, VerboseLog
+from bwtb3m.util.serial import (read_number_map, write_number_map)
+from bwtb3m.util.tmpfiles import (TempFileNameGenerator,
                                       TempFileRemovalContainer)
 
 
@@ -75,3 +76,81 @@ def test_number_map_roundtrip(tmp_path):
     write_number_map(buf, m)
     buf.seek(0)
     assert read_number_map(buf) == m
+
+
+# ---------------------------------------------------------------- device memory budgets
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_device_budget_cpu_uses_host_memory(monkeypatch):
+    import jax
+
+    from bwtb3m.util import devmem
+
+    monkeypatch.delenv("BWTB3M_DEV_HBM", raising=False)
+    host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    assert devmem.device_bytes_limit(jax.devices("cpu")[0]) == host
+    assert devmem.device_budget("BWTB3M_DEV_HBM") == int(
+        host * devmem.BUDGET_FRACTION)
+
+
+def test_device_budget_gpu_from_bytes_limit(monkeypatch):
+    from bwtb3m.util import devmem
+
+    monkeypatch.delenv("BWTB3M_BATCH_HBM", raising=False)
+    gpu = _FakeDevice("gpu", {"bytes_limit": 60 << 30, "bytes_in_use": 1})
+    assert devmem.device_budget("BWTB3M_BATCH_HBM", gpu) == int(
+        (60 << 30) * devmem.BUDGET_FRACTION)
+    # the environment override still wins
+    monkeypatch.setenv("BWTB3M_BATCH_HBM", "12345")
+    assert devmem.device_budget("BWTB3M_BATCH_HBM", gpu) == 12345
+
+
+def test_device_budget_gpu_without_stats_raises(monkeypatch):
+    from bwtb3m.util import devmem
+
+    monkeypatch.delenv("BWTB3M_PLCP_DEV_BYTES", raising=False)
+    for stats in (None, {"bytes_in_use": 1}):
+        with pytest.raises(RuntimeError, match="no memory limit"):
+            devmem.device_budget("BWTB3M_PLCP_DEV_BYTES",
+                                 _FakeDevice("gpu", stats))
+
+
+# ---------------------------------------------------------------- compile cache
+
+
+@pytest.mark.parametrize("env_dir", [None, "/some/where/cache"])
+def test_compile_cache_dir(monkeypatch, env_dir):
+    """With JAX_COMPILATION_CACHE_DIR set the package leaves the cache dir
+    to JAX; without it the cache sits at one fixed path in the checkout."""
+    import jax
+
+    import bwtb3m
+
+    saved = (jax.config.jax_compilation_cache_dir,
+             jax.config.jax_persistent_cache_min_compile_time_secs)
+    try:
+        jax.config.update("jax_compilation_cache_dir", env_dir)
+        if env_dir is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        else:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+        bwtb3m._enable_jax_cache()
+        want = env_dir or os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(
+                bwtb3m.__file__))), ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == want
+        assert bwtb3m.CACHE_DIR.endswith(os.sep + ".jax_cache")
+        assert (jax.config.jax_persistent_cache_min_compile_time_secs
+                == bwtb3m.CACHE_MIN_COMPILE_SECS)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          saved[1])

@@ -15,10 +15,10 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from bwtb3m_tpu.ops.focc import FusedOcc
-from bwtb3m_tpu.ops.focc_bp import NPLANES, FusedOccBP
-from bwtb3m_tpu.ops.focc_build import build_focc_host
-from bwtb3m_tpu.ops.wideocc import (
+from bwtb3m.ops.focc import FusedOcc
+from bwtb3m.ops.focc_bp import NPLANES, FusedOccBP
+from bwtb3m.ops.focc_build import build_focc_host
+from bwtb3m.ops.wideocc import (
     WideOcc, access_batch_w, find_wrap_rows, lf_step_batch_w,
     rank_batch_w, row_of, widen_focc)
 
@@ -156,8 +156,8 @@ def test_check_bwt_wide_kernel(tmp_path, monkeypatch):
     # the result must match the narrow path — including catching a
     # corrupted BWT. (The wrap arithmetic itself is pinned by the
     # straddle tests above; this pins the engine plumbing.)
-    from bwtb3m_tpu.engine import BwtOptions, check_bwt, compute_bwt
-    from bwtb3m_tpu.io import rl
+    from bwtb3m.engine import BwtOptions, check_bwt, compute_bwt
+    from bwtb3m.io import rl
 
     rng = np.random.default_rng(17)
     data = bytes(rng.integers(97, 102, size=4096, dtype=np.uint8))
@@ -167,7 +167,7 @@ def test_check_bwt_wide_kernel(tmp_path, monkeypatch):
                                  verbose=0))
     text = np.frombuffer(data, np.uint8).astype(np.int32)
     monkeypatch.setenv("BWTB3M_FORCE_WIDE", "1")
-    from bwtb3m_tpu.ops.wideocc import WideOcc
+    from bwtb3m.ops.wideocc import WideOcc
     focc, _ = res.load_focc(dense=True)
     assert isinstance(focc, WideOcc)
     assert check_bwt(res, text)
@@ -181,8 +181,8 @@ def test_check_bwt_wide_kernel(tmp_path, monkeypatch):
 def test_compute_ssa_wide_kernel(tmp_path, monkeypatch):
     # the wide harvest (two-word lanes, borrow/carry position math, split
     # sa planes) must reproduce the narrow path's .sa/.isa exactly
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt, compute_ssa
-    from bwtb3m_tpu.io import formats
+    from bwtb3m.engine import BwtOptions, compute_bwt, compute_ssa
+    from bwtb3m.io import formats
 
     rng = np.random.default_rng(23)
     data = bytes(rng.integers(97, 101, size=8192, dtype=np.uint8))
@@ -203,9 +203,9 @@ def test_compute_ssa_wide_kernel(tmp_path, monkeypatch):
 
 
 def test_compute_isa_wide_kernel(tmp_path, monkeypatch):
-    from bwtb3m_tpu.engine import BwtOptions, compute_bwt
-    from bwtb3m_tpu.engine.ssa import compute_isa_from_preisa
-    from bwtb3m_tpu.io import formats
+    from bwtb3m.engine import BwtOptions, compute_bwt
+    from bwtb3m.engine.ssa import compute_isa_from_preisa
+    from bwtb3m.io import formats
 
     rng = np.random.default_rng(29)
     data = bytes(rng.integers(97, 103, size=5000, dtype=np.uint8))
